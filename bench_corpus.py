@@ -83,3 +83,26 @@ def swissprot_fasta(n: int, rng: np.random.Generator,
     return "".join(
         f">s{i} seq {i}\n{swissprot_letters(L, rng)}\n"
         for i, L in enumerate(lens))
+
+
+def write_swissprot_fasta(path: str, n: int, rng: np.random.Generator,
+                          max_len: int | None = None) -> int:
+    """Write n Swiss-Prot-like protein sequences (the same composition
+    and length model as swissprot_fasta) to a FASTA file, drawing all
+    residues in one call so a Swiss-Prot-scale database (570k sequences,
+    ~2e8 residues) takes seconds.  Returns the residue count."""
+    lens = swissprot_lengths(n, rng)
+    if max_len is not None:
+        lens = np.minimum(lens, max_len)
+    letters = np.frombuffer("".join(SWISSPROT_AA_PERCENT).encode(),
+                            dtype=np.uint8)
+    res = letters[rng.choice(len(letters), size=int(lens.sum()), p=_freqs)]
+    ends = np.cumsum(lens)
+    with open(path, "wb") as f:
+        lo = 0
+        for i, hi in enumerate(ends):
+            f.write(b">s%d seq %d\n" % (i, i))
+            f.write(res[lo:hi].tobytes())
+            f.write(b"\n")
+            lo = hi
+    return int(lens.sum())

@@ -5,7 +5,7 @@
 // core); this is the same algorithm in one C pass, byte-for-byte equal
 // output (tests/test_native_packer.py fuzzes the equivalence).  It is
 // the search-phase counterpart of the reference's pthread-parallel db
-// preprocessing (/root/reference/swipe.cc:804,1684-1699): on the TPU
+// preprocessing (/root/reference/swipe.cc:804,1684-1699): in this
 // design the device does the scoring, so the host side's job is to keep
 // ingestion off the critical path.
 //

@@ -1,24 +1,23 @@
-"""swipe-tpu: a TPU-native Smith-Waterman database-search engine.
+"""swipe-tpu: a Smith-Waterman database-search engine in JAX.
 
-A from-scratch JAX/Pallas rebuild of the capabilities of SWIPE
+A from-scratch JAX rebuild of the capabilities of SWIPE
 (Rognes 2011, https://github.com/torognes/swipe): exhaustive optimal
 local-alignment search of protein/nucleotide queries against large sequence
 databases, with BLAST-compatible statistics, formats and search modes
 (blastn/blastp/blastx/tblastn/tblastx).
 
-Architecture (TPU-first, not a port):
+Architecture:
   * the inter-sequence SIMD DP of SWIPE's search7/16/63 kernels becomes a
-    Pallas kernel packing hundreds of length-sorted database sequences into
-    the VPU lanes, with the substitution-score gather done as a one-hot
-    matmul on the MXU;
-  * the per-lane refill machine becomes host-side length-sorted batch
-    packing (static shapes for XLA);
+    lane stream: thousands of database sequences concatenated per lane,
+    scored on an NVIDIA GPU by a CUDA kernel (native/sw_stream.cu, one
+    warp or sub-warp per (query, lane) pair, query rows in registers,
+    Hopper's DPX add-max instructions) and elsewhere by its lax.scan twin;
+  * the per-lane refill machine becomes host-side LPT lane packing with a
+    streamed start mask (static shapes for XLA);
   * the pthreads work queue + MPI master/slave become shard_map over a
     device mesh with lax.top_k merges and psum counters;
-  * the 7->16->63-bit precision escalation becomes an optional
-    saturation-emulating cascade — the primary path is a single exact
-    int32 pass, which on the 32-bit-lane TPU VPU is as fast as a narrow
-    tier would be.
+  * the 7->16->63-bit precision escalation becomes a single exact int32
+    pass; the cascade's counters are derived from the exact scores.
 """
 
 __version__ = "0.1.0"

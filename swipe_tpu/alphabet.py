@@ -1,6 +1,6 @@
 """Alphabets, character maps, reverse complement and genetic-code translation.
 
-TPU-native rebuild of the sequence-symbol layer of SWIPE.  All alphabets follow
+Rebuild of the sequence-symbol layer of SWIPE.  All alphabets follow
 the NCBI conventions (parity target: /root/reference/query.cc:31-179,368-506):
 
 * ``ncbi_aa``  : 28-symbol protein alphabet, codes 0..27, ``sym_ncbi_aa``.

@@ -1,11 +1,11 @@
 """Host-side database batching: length-sorted segment packing.
 
-TPU-native replacement for SWIPE's dynamic work structures (parity targets:
+Replacement for SWIPE's dynamic work structures (parity targets:
 calc_chunks /root/reference/swipe.cc:441-525 and the in-kernel channel
 refill machine /root/reference/search7.cc:830-957): because XLA wants
 static shapes, sequences are length-sorted and packed ahead of time.
 
-Packing model (matches swipe_tpu.ops.sw_pallas.sw_scores_segmented):
+Packing model (matches swipe_tpu.ops.sw_segment.sw_scores_lax):
 
 * a *segment* holds ``nseqs`` consecutive length-sorted sequences, one per
   lane, padded with PAD_SYMBOL to the segment length = the longest member
@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .ops.sw_pallas import PAD_SYMBOL, SEG_BLK
+from .ops.sw_segment import PAD_SYMBOL, SEG_BLK
 
 __all__ = ["PackedChunk", "pack_database", "StreamChunk", "pack_stream",
            "pack_stream_carry", "FlowChunk", "pack_stream_flow", "round_up"]
@@ -77,7 +77,7 @@ def pack_database(seqs: list[np.ndarray], nseqs: int = 512,
                   seqnos: np.ndarray | None = None) -> list[PackedChunk]:
     """Length-sort and pack sequences into segment chunks.
 
-    ``max_cols`` caps a chunk's column count (VMEM-independent; controls
+    ``max_cols`` caps a chunk's column count (controls
     launch granularity and device sharding units).  A single segment longer
     than max_cols still becomes its own (oversized) chunk.
     """
@@ -383,19 +383,18 @@ def pack_stream_flow(seqs: list[np.ndarray], nseqs: int = 2048,
         # for heavy tails).  A chain advances at most one chunk height
         # per launch while every lane of the launch pays full time, so
         # drain chunks get SHORT (drain_cols) and NARROW (the smallest
-        # 1024-lane multiple — the Pallas kernel's minimum width — that
-        # holds the chains; the carried state narrows with the chunk
-        # through the carry_src gather).
+        # 1024-lane multiple that holds the chains; the carried state
+        # narrows with the chunk through the carry_src gather).
         draining = not queue
         H = H_drain if draining else H_full
         width = nseqs if not draining else \
             min(nseqs, max(round_up(len(remainders), 1024), 1024))
         if oneshot_drain and draining and len(remainders) <= width <= 1024:
             # one-shot drain: every chain fits one lane of this chunk, and
-            # the width is already floored at the kernel minimum, so
-            # walking the chains progressively (H_drain cols per launch)
-            # costs the SAME footprint but pays a chunk boundary — state
-            # DMA in/out, a carry permute, a launch — per step.  Retire
+            # the width is already at its 1024-lane floor, so walking the
+            # chains progressively (H_drain cols per launch) costs the
+            # SAME footprint but pays a chunk boundary — state in/out, a
+            # carry permute, a launch — per step.  Retire
             # everything in ONE chunk of height max-remaining instead
             # (measured on the config-1 corpus: chunks 3..10 collapse to
             # one).  Chromosome-deep chains keep the bounded progressive
@@ -480,8 +479,7 @@ def pack_stream_carry(seqs: list[np.ndarray], nseqs: int = 1024,
                       ) -> list[StreamChunk]:
     """Carry packing: bounded chunks for unbounded sequence lengths.
 
-    The db-axis transpose of ``sw_scores_stream_long``'s query tiling,
-    and the TPU equivalent of the reference's O(qlen)-state unbounded db
+    The equivalent of the reference's O(qlen)-state unbounded db
     streaming (/root/reference/search7.cc:787 — hearray is the only
     state; windowed mmap database.cc:1082-1131): each lane holds one
     concatenated stream of whole sequences (LPT-assigned by total load),

@@ -2,7 +2,7 @@
 
 Functional re-design of the reference's mutex-guarded sorted-insertion list
 (parity target: /root/reference/hits.cc:28-618).  Scores stream in as NumPy
-batches from the TPU kernel; candidates at or above the initial threshold
+batches from the scoring kernel; candidates at or above the initial threshold
 are accumulated and the final top-K is selected with exactly the ordering
 the reference's insertion loop produces:
 

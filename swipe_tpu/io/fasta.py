@@ -83,7 +83,7 @@ def scan_fasta_bytes(blob: bytes):
     The reference reads its FASTA database record by record through the
     same fgets loop as queries; at Swiss-Prot scale a per-record Python
     loop costs ~14 s, so bulk ingestion scans the whole byte stream with
-    numpy instead (the TPU-idiomatic replacement for the reference's
+    numpy instead (the array-idiomatic replacement for the reference's
     pthread-parallel db preprocessing, /root/reference/swipe.cc:804,
     1684-1699).
 

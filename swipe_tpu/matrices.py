@@ -9,7 +9,7 @@ From it we derive:
 * ``bias``            = -min(matrix)                       (BIAS)
 * ``scorelimit_7``    = 128 - max(matrix)                  (SCORELIMIT_7)
 * ``scorelimit_16``   = 65536 - max(matrix)                (SCORELIMIT_16)
-* device-side int8/int16/int32 copies used by the Pallas kernels.
+* the int8 copy the stream route scores with (ops.sw_stream.build_matrix8).
 
 Built-in matrix *data* (BLOSUM45/50/62/80/90, PAM30/70/250, IDENTITY_5_1) are
 the standard public NCBI tables, stored as plain text files in
@@ -108,7 +108,7 @@ class ScoreMatrix:
 
     @property
     def fits_int8(self) -> bool:
-        """True when the int8 TPU kernels can take this matrix directly."""
+        """True when the stream route's int8 profile can hold this matrix."""
         return self.lo >= -128 and self.hi <= 127
 
     def with_gaps(self, gapopen: int, gapextend: int) -> "ScoreMatrix":

@@ -1,9 +1,10 @@
-"""ctypes bindings to the native C++ runtime (native/libswipetpu.so).
+"""ctypes bindings to the native C++ runtime (native/build/libswipetpu.so).
 
-The native library currently provides the gapped aligner (region reverse pass
-+ Myers-Miller traceback).  When the shared object has not been built the
-pure-NumPy implementations in :mod:`swipe_tpu.align` are used instead.
-Build with ``make -C native`` (see native/Makefile).
+The native library provides the gapped aligner (region reverse pass +
+Myers-Miller traceback) and the LPT lane packer.  It is built from
+native/*.cc at first use (or by ``make -C native``); without a C++
+compiler the pure-NumPy implementations in :mod:`swipe_tpu.align` and
+:mod:`swipe_tpu.batching` are used instead.
 """
 
 from __future__ import annotations
@@ -44,11 +45,46 @@ def tune_malloc() -> bool:
         _MALLOC_TUNED = False
     return _MALLOC_TUNED
 
-_SO_PATHS = [
-    os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                 "native", "libswipetpu.so"),
-    os.path.join(os.path.dirname(__file__), "libswipetpu.so"),
-]
+_NATIVE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "native")
+_SO = os.path.join(_NATIVE, "build", "libswipetpu.so")
+_SOURCES = [os.path.join(_NATIVE, f) for f in ("aligner.cc", "packer.cc")]
+
+
+def build() -> str | None:
+    """Compile native/*.cc into native/build/libswipetpu.so unless it is
+    up to date (the same command as ``make -C native``).  Runs under a
+    file lock so concurrent test workers build once.  Returns the path,
+    or None when no C++ compiler is available or the build fails — the
+    NumPy implementations then serve (this library is optional)."""
+    import fcntl
+    import subprocess
+
+    def fresh():
+        return os.path.exists(_SO) and os.path.getmtime(_SO) >= max(
+            os.path.getmtime(f) for f in _SOURCES)
+
+    if fresh():
+        return _SO
+    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    with open(_SO + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if fresh():
+            return _SO
+        tmp = f"{_SO}.{os.getpid()}.tmp"
+        cmd = [os.environ.get("CXX", "g++"), "-O3", "-march=native",
+               "-fPIC", "-std=c++17", "-shared", "-o", tmp, *_SOURCES]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError:
+            return None
+        if res.returncode != 0:
+            import sys
+            sys.stderr.write("swipe_tpu: native build failed, using the "
+                             "NumPy paths:\n" + res.stderr[-2000:])
+            return None
+        os.replace(tmp, _SO)
+    return _SO
 
 
 def _load():
@@ -56,48 +92,44 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    for p in _SO_PATHS:
-        if os.path.exists(p):
-            try:
-                lib = ctypes.CDLL(p)
-            except OSError:
-                continue
-            lib.swtpu_align.restype = ctypes.c_long
-            lib.swtpu_align.argtypes = [
-                ctypes.POINTER(ctypes.c_int8), ctypes.c_long,   # a, M
-                ctypes.POINTER(ctypes.c_int8), ctypes.c_long,   # b, N
-                ctypes.POINTER(ctypes.c_long),                  # matrix 32x32
-                ctypes.c_long, ctypes.c_long,                   # q, r
-                ctypes.c_long,                                  # hint flag
-                ctypes.POINTER(ctypes.c_long),                  # inout coords[5]
-                ctypes.c_char_p, ctypes.c_long,                 # ops buf, cap
-            ]
-            try:
-                i64p = ctypes.POINTER(ctypes.c_int64)
-                i32p = ctypes.POINTER(ctypes.c_int32)
-                i8p = ctypes.POINTER(ctypes.c_int8)
-                lib.swtpu_pack_plan.restype = ctypes.c_int64
-                lib.swtpu_pack_plan.argtypes = [
-                    ctypes.c_int64, i64p, i64p,                 # nseq lens order
-                    ctypes.c_int64, ctypes.c_int64,             # nlanes maxblk
-                    ctypes.c_int64,                             # block
-                    i32p, i32p, i64p, i64p,                     # chunk lane blk nb
-                ]
-                lib.swtpu_pack_fill.restype = None
-                lib.swtpu_pack_fill.argtypes = [
-                    ctypes.c_int64, i64p,                       # nmember seqidx
-                    i8p, i64p,                                  # blob offs
-                    i32p, i64p,                                 # lane startblk
-                    ctypes.c_int64, ctypes.c_int64,             # block ncols
-                    ctypes.c_int8,                              # pad
-                    i8p, i8p,                                   # data_t start
-                    ctypes.c_int64, ctypes.c_int64,             # nlanes nblocks
-                ]
-            except AttributeError:
-                # an older .so without the packer: aligner still usable
-                lib._swtpu_no_packer = True
-            _LIB = lib
-            break
+    path = build()
+    if path is None:
+        return None
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError:
+        return None
+    lib.swtpu_align.restype = ctypes.c_long
+    lib.swtpu_align.argtypes = [
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_long,   # a, M
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_long,   # b, N
+        ctypes.POINTER(ctypes.c_long),                  # matrix 32x32
+        ctypes.c_long, ctypes.c_long,                   # q, r
+        ctypes.c_long,                                  # hint flag
+        ctypes.POINTER(ctypes.c_long),                  # inout coords[5]
+        ctypes.c_char_p, ctypes.c_long,                 # ops buf, cap
+    ]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i8p = ctypes.POINTER(ctypes.c_int8)
+    lib.swtpu_pack_plan.restype = ctypes.c_int64
+    lib.swtpu_pack_plan.argtypes = [
+        ctypes.c_int64, i64p, i64p,                 # nseq lens order
+        ctypes.c_int64, ctypes.c_int64,             # nlanes maxblk
+        ctypes.c_int64,                             # block
+        i32p, i32p, i64p, i64p,                     # chunk lane blk nb
+    ]
+    lib.swtpu_pack_fill.restype = None
+    lib.swtpu_pack_fill.argtypes = [
+        ctypes.c_int64, i64p,                       # nmember seqidx
+        i8p, i64p,                                  # blob offs
+        i32p, i64p,                                 # lane startblk
+        ctypes.c_int64, ctypes.c_int64,             # block ncols
+        ctypes.c_int8,                              # pad
+        i8p, i8p,                                   # data_t start
+        ctypes.c_int64, ctypes.c_int64,             # nlanes nblocks
+    ]
+    _LIB = lib
     return _LIB
 
 
@@ -106,8 +138,7 @@ def available() -> bool:
 
 
 def pack_available() -> bool:
-    lib = _load()
-    return lib is not None and not getattr(lib, "_swtpu_no_packer", False)
+    return available()
 
 
 def pack_plan(lens: np.ndarray, order: np.ndarray, nlanes: int,

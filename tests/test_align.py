@@ -221,16 +221,16 @@ def test_hint_device_twin_matches_numpy(m62):
                           dtype=np.int8) for _ in range(21)]
     lens = _np.array([len(d) for d in dseqs], dtype=_np.int64)
     mat = _np.asarray(m62.matrix, dtype=_np.int64).reshape(32, 32)
-    got = AH._hint_endpoints_device(q.astype(_np.int64), dseqs, lens,
-                                    mat, 12, 1)
+    got = AH._hint_endpoints_lax(q.astype(_np.int64), dseqs, lens,
+                                 mat, 12, 1)
     want = [AH.hint_endpoint(q, d, m62.matrix, 11, 1) for d in dseqs]
     assert got == want
 
 
-def test_hint_pallas_kernel_matches_numpy(m62):
-    # the Pallas hint kernel (search16s analog) must reproduce the NumPy
-    # pass exactly — scores, smallest-row / first-column tie rules, and
-    # the (-1, 0) no-score sentinel — across lane padding and RU edges
+def test_hint_lax_twin_matches_numpy_cases(m62):
+    # the lax hint pass (search16s analog) must reproduce the NumPy pass
+    # exactly — scores, smallest-row / first-column tie rules, and the
+    # (-1, 0) no-score sentinel — across lane and row bucket padding
     from swipe_tpu.ops import align_hint as AH
     rng = np.random.default_rng(54)
     for go, ge, qlen in ((11, 1, 37), (4, 2, 130)):
@@ -240,8 +240,8 @@ def test_hint_pallas_kernel_matches_numpy(m62):
         dseqs.append(np.array([25, 25, 25], dtype=np.int8))  # score-0 lane
         lens = np.array([len(d) for d in dseqs], dtype=np.int64)
         mat = np.asarray(m62.matrix, dtype=np.int64).reshape(32, 32)
-        got = AH._hint_endpoints_pallas(q.astype(np.int64), dseqs, lens,
-                                        mat, go + ge, ge, interpret=True)
+        got = AH._hint_endpoints_lax(q.astype(np.int64), dseqs, lens,
+                                     mat, go + ge, ge)
         want = [AH.hint_endpoint(q, d, m62.matrix, go, ge) for d in dseqs]
         assert got == want
 
@@ -299,13 +299,13 @@ def test_hint_unsegmentable_giant_routes_solo(m62, monkeypatch):
     assert got == want
 
 
-def test_hint_pallas_overhang_rows_high_gap(m62):
+def test_hint_lax_overhang_rows_high_gap(m62):
     # gapopenextend > 128 exceeds the PAD row score (-128), so a query
-    # row past qlen (the RU round-up overhang) could beat the real rows'
-    # column max at a segmented lane's first owned column; the kernel
-    # masks overhang rows out of the cm/ra update.  One lane plants a
-    # full-query match just before its owned region so the overhang diag
-    # step would win there pre-fix.
+    # row past qlen (the row-bucket overhang) could beat the real rows'
+    # column max at a segmented lane's first owned column; the lax pass
+    # masks overhang rows out of the column max.  One lane plants a
+    # full-query match just before its owned region so an overhang diag
+    # step would win there if it were not masked.
     from swipe_tpu.ops import align_hint as AH
     rng = np.random.default_rng(58)
     q = rng.integers(1, 21, size=37, dtype=np.int8)      # 37 % 4 != 0
@@ -318,10 +318,9 @@ def test_hint_pallas_overhang_rows_high_gap(m62):
     st = np.array([int(rng.integers(0, 30)) for _ in range(23)] + [37],
                   dtype=np.int64)
     mat = np.asarray(m62.matrix, dtype=np.int64).reshape(32, 32)
-    got = AH._hint_endpoints_pallas(q.astype(np.int64), dseqs, lens, mat,
-                                    140, 1, starts=st, interpret=True)
-    want = AH._hint_endpoints_lax(q.astype(np.int64), dseqs, lens, mat,
-                                  140, 1, starts=st)
+    got = AH._hint_endpoints_lax(q.astype(np.int64), dseqs, lens, mat,
+                                 140, 1, starts=st)
+    want = AH._hint_batch(q.astype(np.int64), dseqs, mat, 140, 1, st)
     assert got == want
     assert all(bq < 37 for _, bq, _ in got)  # no overhang row reported
 
@@ -378,8 +377,8 @@ def test_hint_giant_segmented_matches_unsegmented(m62, monkeypatch):
 
 
 def test_hint_device_routes_honor_starts(m62):
-    # both device twins (lax scan + Pallas kernel) must apply the
-    # per-lane first-tracked-column mask exactly like the NumPy pass
+    # the device twin (lax scan) must apply the per-lane
+    # first-tracked-column mask exactly like the NumPy pass
     from swipe_tpu.ops import align_hint as AH
     rng = np.random.default_rng(56)
     q = rng.integers(1, 5, size=33, dtype=np.int8)
@@ -394,9 +393,6 @@ def test_hint_device_routes_honor_starts(m62):
                           12, 1, starts)
     got_lax = AH._hint_endpoints_lax(q64, dseqs, lens, mat, 12, 1, starts)
     assert got_lax == want
-    got_pl = AH._hint_endpoints_pallas(q64, dseqs, lens, mat, 12, 1,
-                                       starts, interpret=True)
-    assert got_pl == want
 
 
 def test_align_all_threads_identical():
@@ -478,10 +474,9 @@ def test_align_empty_subject_fatal(m62):
 
 
 def test_hint_endpoints_grid_matches_per_bin(m62):
-    # the batched grid pass (one dispatch for many (query, bin) jobs via
-    # the hint kernel's query axis) must equal the per-bin results
-    # exactly, across different query lengths, subject scales, and
-    # score-0 lanes; ineligible bins (a segmented giant) fall back
+    # the batched pass over many (query, bin) jobs must equal the per-bin
+    # results exactly, across different query lengths, subject scales,
+    # score-0 lanes and a segmented giant
     from swipe_tpu.ops import align_hint as AH
     rng = np.random.default_rng(77)
     jobs = []
@@ -491,14 +486,12 @@ def test_hint_endpoints_grid_matches_per_bin(m62):
                            dtype=np.int8) for _ in range(n)]
         ds.append(np.array([25, 25, 25], dtype=np.int8))   # score-0 lane
         jobs.append((q, ds))
-    # one ineligible bin: subject above the giant threshold routes to
-    # the per-bin segmented path
+    # one subject above the giant threshold takes the segmented path
     qg = rng.integers(1, 26, size=40, dtype=np.int8)
     giant = rng.integers(1, 26, size=AH.GIANT_HINT_MIN + 7,
                          dtype=np.int8)
     jobs.append((qg, [giant]))
-    got = AH.hint_endpoints_grid(jobs, m62.matrix, 11, 1,
-                                 force_device=True, interpret=True)
+    got = AH.hint_endpoints_grid(jobs, m62.matrix, 11, 1)
     for (q, ds), res in zip(jobs, got):
         want = AH.hint_endpoints_many(q, ds, m62.matrix, 11, 1)
         assert res == want

@@ -1,8 +1,7 @@
 """Multi-device SPMD search on the virtual 8-device CPU mesh."""
 
-import numpy as np
-import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 from swipe_tpu.batching import pack_stream
@@ -15,12 +14,11 @@ from swipe_tpu.parallel.distributed import (make_mesh, merge_topk,
                                             sharded_topk_scores)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_sharded_topk_cells_global():
+def test_sharded_topk_cells_global(devices8):
     # the cell counter must psum over BOTH mesh axes (each q-shard sees
     # only its local query count) — it used to undercount by n_q
     from swipe_tpu.batching import pack_database
-    from swipe_tpu.ops.sw_pallas import build_qpt
+    from swipe_tpu.ops.sw_segment import build_qpt
     rng = np.random.default_rng(3)
     m = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1)
     queries = [rng.integers(1, 26, size=40, dtype=np.int8)
@@ -34,13 +32,12 @@ def test_sharded_topk_cells_global():
     _, _, cells = sharded_topk_scores(
         mesh, qpt, jnp.asarray(ch.data), jnp.asarray(ch.seg_ids),
         jnp.asarray(unit_ids), nsegs=ch.seqnos.shape[0],
-        gapopenextend=12, gapextend=1, k=16, backend="lax")
+        gapopenextend=12, gapextend=1, k=16)
     want = int((unit_ids >= 0).sum()) * len(queries)
     assert int(np.asarray(cells)) == want
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_sharded_stream_topk_exact():
+def test_sharded_stream_topk_exact(devices8):
     rng = np.random.default_rng(0)
     m = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1)
     queries = [rng.integers(1, 26, size=int(L), dtype=np.int8)
@@ -57,8 +54,7 @@ def test_sharded_stream_topk_exact():
         mesh, jnp.asarray(qc), jnp.asarray(ql),
         jnp.asarray(build_matrix8(m.matrix)), jnp.asarray(ch.data),
         jnp.asarray(ch.start), jnp.asarray(eb), jnp.asarray(ln),
-        jnp.asarray(un), gapopenextend=12, gapextend=1, k=k,
-        backend="lax")
+        jnp.asarray(un), gapopenextend=12, gapextend=1, k=k)
     top_s, top_u, cnt = merge_topk(np.asarray(scores), np.asarray(units), k)
     assert int(np.asarray(cells)) == len(seqs) * len(queries)
     assert (cnt == top_s.shape[1]).all()
@@ -73,8 +69,7 @@ def test_sharded_stream_topk_exact():
             assert want[qi, u] == s
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_sharded_stream_topk_sentinel_trim():
+def test_sharded_stream_topk_sentinel_trim(devices8):
     # fewer real sequences than k per shard: sentinel (unit -1, score -1)
     # padding must never surface through merge_topk
     rng = np.random.default_rng(7)
@@ -91,8 +86,7 @@ def test_sharded_stream_topk_sentinel_trim():
         mesh, jnp.asarray(qc), jnp.asarray(ql),
         jnp.asarray(build_matrix8(m.matrix)), jnp.asarray(ch.data),
         jnp.asarray(ch.start), jnp.asarray(eb), jnp.asarray(ln),
-        jnp.asarray(un), gapopenextend=12, gapextend=1, k=k,
-        backend="lax")
+        jnp.asarray(un), gapopenextend=12, gapextend=1, k=k)
     top_s, top_u, cnt = merge_topk(np.asarray(scores), np.asarray(units), k)
     assert top_u.shape[1] == len(seqs)
     # the explicit per-row count replaces the skip-unit<0 convention
@@ -102,9 +96,8 @@ def test_sharded_stream_topk_sentinel_trim():
     assert np.array_equal(top_s[0], np.sort(want)[::-1])
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 @pytest.mark.parametrize("n_db,n_q", [(8, 1), (2, 4), (1, 8)])
-def test_sharded_stream_mesh_shapes(n_db, n_q):
+def test_sharded_stream_mesh_shapes(devices8, n_db, n_q):
     rng = np.random.default_rng(n_db * 100 + n_q)
     m = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1)
     queries = [rng.integers(1, 26, size=int(L), dtype=np.int8)
@@ -120,8 +113,7 @@ def test_sharded_stream_mesh_shapes(n_db, n_q):
         mesh, jnp.asarray(qc), jnp.asarray(ql),
         jnp.asarray(build_matrix8(m.matrix)), jnp.asarray(ch.data),
         jnp.asarray(ch.start), jnp.asarray(eb), jnp.asarray(ln),
-        jnp.asarray(un), gapopenextend=12, gapextend=1, k=k,
-        backend="lax")
+        jnp.asarray(un), gapopenextend=12, gapextend=1, k=k)
     top_s, top_u, cnt = merge_topk(np.asarray(scores), np.asarray(units), k)
     assert (cnt == top_s.shape[1]).all()
     want = np.stack([sw_numpy_many(q, seqs, m.matrix, 11, 1)

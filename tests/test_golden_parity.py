@@ -305,10 +305,10 @@ def test_golden(ref_swipe, dbs, name, args, db, qf):
 
 
 # production-path parity: the same byte comparison, but through the
-# stream backend (pack_stream grouping, the stream kernel in interpret
-# mode, the device-side top-K reduction) — so the CLI -> stream ->
-# top-K -> report chain sits in the byte-parity loop, not only the lax
-# fallback.  A subset of CASES covering every mode/view plus the upper
+# stream backend (pack_stream grouping, the platform's stream kernel —
+# the lax twin on the CPU — and the device-side top-K reduction) — so
+# the CLI -> stream -> top-K -> report chain sits in the byte-parity
+# loop, not only the segment route.  A subset of CASES covering every mode/view plus the upper
 # cutoff, where the device reduction masks scores.
 STREAM_CASES = [
     "blastp-m8", "blastp-m0", "blastp-m7", "blastp-m99",
@@ -325,7 +325,7 @@ STREAM_CASES = [
 def test_golden_stream_backend(ref_swipe, dbs, name, args, db, qf):
     full = args + ["-d", str(dbs / db), "-i", str(dbs / qf)]
     ref_out = _normalize(run_ref(ref_swipe, full))
-    our_out = _normalize(run_ours(full, backend="stream_interpret"))
+    our_out = _normalize(run_ours(full, backend="stream"))
     assert our_out == ref_out, (
         f"stream-backend mismatch for {name}\n--- first diff ---\n"
         + "\n".join(_first_diff(ref_out, our_out)))
@@ -536,8 +536,7 @@ def test_golden_long_db_sequence(ref_swipe, tmp_path):
     comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
     qrc = "".join(comp[c] for c in reversed(qn))
     # > 65536 so the STREAM backend also classifies it as giant: below
-    # that the interpret subcase packs one 70k-tall chunk and runs its
-    # ~4400 grid steps in Python (measured 19 min); through the
+    # that the stream subcase packs one 70k-tall chunk; through the
     # segmented route the pieces pack ~70x shorter
     giant = ("".join(rng.choice(NT, 40000)) + qn
              + "".join(rng.choice(NT, 20000)) + qrc
@@ -571,7 +570,7 @@ def test_golden_long_db_sequence(ref_swipe, tmp_path):
         if i == 0:
             # the stream backend routes the lone giant through exact
             # overlapped segmentation — keep it in the byte-parity loop
-            wf_out = _normalize(run_ours(full, backend="stream_interpret"))
+            wf_out = _normalize(run_ours(full, backend="stream"))
             assert wf_out == ref_out, (
                 "segmented long-seq mismatch\n"
                 + "\n".join(_first_diff(ref_out, wf_out)))

@@ -121,9 +121,9 @@ def test_multihost_output_identical(mh_db, case):
 
 def test_multihost_output_identical_stream_backend(mh_db):
     """Same 2-process byte-parity through the PRODUCTION stream path
-    (Pallas kernel in interpret mode on the CPU mesh) — the lax cases
-    above validate the collective plumbing, this one the stream
-    packing/flow/carry route multihost actually ships with."""
+    (the platform's stream kernel — the lax twin on the CPU mesh) — the
+    lax cases above validate the collective plumbing, this one the
+    stream packing/flow/carry route multihost actually ships with."""
     args = ["-p", "blastp", "-m", "9", "-d", str(mh_db / "db.fa"),
             "-i", str(mh_db / "qp.fa")]
     from contextlib import redirect_stdout
@@ -131,11 +131,11 @@ def test_multihost_output_identical_stream_backend(mh_db):
     from swipe_tpu.cli import main
     buf = io.StringIO()
     with redirect_stdout(buf):
-        rc = main(args + ["--backend", "stream_interpret"])
+        rc = main(args + ["--backend", "stream"])
     assert rc == 0
     single = _normalize(buf.getvalue())
     multi = _normalize(_run_multi(
-        mh_db, args, nproc=2, backend="stream_interpret"))
+        mh_db, args, nproc=2, backend="stream"))
     assert multi == single
 
 
@@ -370,25 +370,76 @@ def test_multihost_giant_segmented_route():
                           params, max_cols=2048, backend="lax")
     query = preprocess_query("q", q, 1, 3)
     slots = [(None, 1, 0, query.aa[0])]
-    (ids, sc), = list(eng._iter_carry_scores(slots, 64,
-                                             "stream_interpret"))
+    (ids, sc), = list(eng._iter_carry_scores(slots, 64, "lax"))
     assert list(ids) == [0]
     want = sw_numpy(query.aa[0], eng._giant_seqs[0],
                     eng.matrix.matrix, 11, 1)
     assert int(np.asarray(sc)[0, 0]) == want
 
 
-def test_pick_stream_mode_routes_long_queries():
-    # queries beyond one VMEM tile must take the query-tiled kernel on
-    # the multi-host path too (the plain kernel's scratch would exceed
-    # the 16 MB VMEM budget at qlen_pad 2048 x 1024 lanes)
-    from swipe_tpu.parallel.multihost import _pick_stream_mode
-    assert _pick_stream_mode(False, 1024, 2048) == ("lax", 2048)
-    assert _pick_stream_mode(True, 1024, 512) == ("stream", 512)
-    assert _pick_stream_mode(True, 2048, 512) == ("stream", 512)
-    assert _pick_stream_mode(True, 2048, 640) == ("stream_long", 1024)
-    mode, pad = _pick_stream_mode(True, 1024, 1152)
-    assert mode == "stream_long" and pad % 512 == 0 and pad >= 1152
+@pytest.mark.parametrize("nseqs", [None, 24])
+def test_multihost_engine_meshes_local_devices(nseqs):
+    """One process meshes all of its local devices (8 virtual CPU
+    devices here, the cards of a GPU host on the chip) with any lane
+    count that splits over them — no per-device lane floor — and its
+    hits equal the single-device SearchEngine's."""
+    import jax
+
+    from swipe_tpu.io.db import FastaDatabase
+    from swipe_tpu.io.fasta import preprocess_query
+    from swipe_tpu.parallel.multihost import MultiHostEngine
+    from swipe_tpu.pipeline import SearchEngine, SearchParams
+    rng = np.random.default_rng(81)
+    AA = list("ARNDCQEGHILKMFPSTWYV")
+    q = "".join(rng.choice(AA, 50))
+    recs = ["".join(rng.choice(AA, int(rng.integers(30, 150))))
+            for _ in range(60)]
+    recs[17] = recs[17][:10] + q[5:45] + recs[17][10:]
+    fasta = "".join(f">s{i} r{i}\n{s}\n" for i, s in enumerate(recs))
+    db = FastaDatabase(io.StringIO(fasta), "aa")
+    params = SearchParams(symtype=1, gapopen=11, gapextend=1,
+                          descriptions=30, alignments=2, expect=1e9)
+    eng = MultiHostEngine(db, params, nseqs=nseqs, backend="stream")
+    n_local = len(jax.local_devices())
+    assert eng._mesh.devices.size == n_local
+    assert eng._nseqs_local % n_local == 0
+    if nseqs is None:
+        assert eng._nseqs_local == SearchEngine.stream_lanes() * n_local
+    query = preprocess_query("q", q, 1, 3)
+    got = eng.search_batch([query])[0]
+    want = SearchEngine(db, params, backend="stream").search(query)
+    assert [(h.seqno, h.score, h.alignment) for h in got.hits] == \
+           [(h.seqno, h.score, h.alignment) for h in want.hits]
+    assert got.hits[0].seqno == 17
+
+
+@pytest.mark.parametrize("visible, nproc, want", [
+    ("2,3", 4, [0, 1, 0, 1]),          # 2 of the host's cards visible
+    ("5,1,7,0", 4, [0, 1, 2, 3]),
+    ("GPU-a,GPU-b,GPU-c", 2, [0, 1]),
+    ("4", 3, [None, None, None]),      # one card: JAX takes it
+    ("", 2, [None, None]),
+    ("0,1,2,3", 1, [None]),            # a single process binds nothing
+])
+def test_init_multihost_binds_visible_card(monkeypatch, visible, nproc,
+                                           want):
+    """Several processes on one GPU host each take one card: the index
+    among the cards CUDA_VISIBLE_DEVICES exposes (JAX numbers the visible
+    cards from 0), process_id modulo their count — never an id past what
+    the process can see."""
+    import jax
+
+    from swipe_tpu.parallel import multihost
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda *a, **kw: calls.append((a, kw)))
+    for rank in range(nproc):
+        multihost.init_multihost("localhost:1", nproc, rank)
+    assert [kw.get("local_device_ids", [None])[0] for _, kw in calls] \
+        == want
+    assert [kw["process_id"] for _, kw in calls] == list(range(nproc))
+    assert [multihost.own_card(r, nproc) for r in range(nproc)] == want
 
 
 def test_multihost_slow_rank_dynamic_rebalance(mh_db, tmp_path):

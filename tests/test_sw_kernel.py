@@ -1,12 +1,12 @@
-"""Segmented SW kernel (lax + Pallas interpret) vs the NumPy oracle."""
+"""Segment route (sw_scores_lax on segment packing) vs the NumPy oracle."""
 
 import numpy as np
 import pytest
 
 from swipe_tpu.batching import pack_database
 from swipe_tpu.matrices import ScoreMatrix
-from swipe_tpu.ops.sw_pallas import (PAD_SYMBOL, SEG_BLK, build_qpt,
-                                     sw_scores_lax, sw_scores_segmented)
+from swipe_tpu.ops.sw_segment import (PAD_SYMBOL, SEG_BLK, build_qpt,
+                                      sw_scores_lax)
 from swipe_tpu.ops.sw_ref import sw_numpy_many
 
 
@@ -51,47 +51,44 @@ def test_lax_matches_oracle_multiseg(m62):
     _check_chunk(got, ch, queries, seqs, m62.matrix, 11, 1)
 
 
-def test_pallas_interpret_matches_oracle(m62):
+def test_lax_matches_oracle_two_queries(m62):
     rng = np.random.default_rng(1)
     queries = _rand_seqs(rng, 2, 10, 50)
     seqs = _rand_seqs(rng, 30, 5, 200)
     ch = pack_database(seqs, nseqs=8)[0]
     qpt = build_qpt(queries, m62.matrix, qlen_pad=64)
-    got = np.asarray(sw_scores_segmented(
+    got = np.asarray(sw_scores_lax(
         qpt, ch.data, ch.seg_ids, nsegs=ch.nsegs, gapopenextend=12,
-        gapextend=1, interpret=True))
+        gapextend=1))
     _check_chunk(got, ch, queries, seqs, m62.matrix, 11, 1)
 
 
 def test_pallas_padded_segments_are_zero(m62):
     # nsegs beyond the blocks seg_ids names (pack_database pads the
-    # segment count): those out rows are never visited by the grid and
-    # must read back as zeros like the lax twin, not uninitialized HBM
+    # segment count): those out rows are never written and must read
+    # back as zeros
     rng = np.random.default_rng(9)
     queries = _rand_seqs(rng, 2, 10, 40)
     seqs = _rand_seqs(rng, 10, 5, 100)
     ch = pack_database(seqs, nseqs=8)[0]
     nsegs_pad = ch.nsegs + 3
-    for fn, kw in ((sw_scores_segmented, {"interpret": True}),
-                   (sw_scores_lax, {})):
-        got = np.asarray(fn(
-            build_qpt(queries, m62.matrix, qlen_pad=64), ch.data,
-            ch.seg_ids, nsegs=nsegs_pad, gapopenextend=12, gapextend=1,
-            **kw))
-        assert got.shape[1] == nsegs_pad
-        assert (got[:, ch.nsegs:, :] == 0).all()
+    got = np.asarray(sw_scores_lax(
+        build_qpt(queries, m62.matrix, qlen_pad=64), ch.data,
+        ch.seg_ids, nsegs=nsegs_pad, gapopenextend=12, gapextend=1))
+    assert got.shape[1] == nsegs_pad
+    assert (got[:, ch.nsegs:, :] == 0).all()
 
 
-def test_pallas_state_carry_across_blocks(m62):
-    # sequences longer than SEG_BLK: H/E state must carry across grid steps
+def test_lax_state_carry_across_blocks(m62):
+    # sequences longer than SEG_BLK: H/E state must carry across blocks
     rng = np.random.default_rng(2)
     queries = _rand_seqs(rng, 1, 30, 40)
     seqs = _rand_seqs(rng, 8, 3 * SEG_BLK, 5 * SEG_BLK)
     ch = pack_database(seqs, nseqs=8)[0]
     qpt = build_qpt(queries, m62.matrix, qlen_pad=64)
-    got = np.asarray(sw_scores_segmented(
+    got = np.asarray(sw_scores_lax(
         qpt, ch.data, ch.seg_ids, nsegs=ch.nsegs, gapopenextend=12,
-        gapextend=1, interpret=True))
+        gapextend=1))
     _check_chunk(got, ch, queries, seqs, m62.matrix, 11, 1)
 
 

@@ -1,4 +1,8 @@
-"""Stream SW kernel (lane-refill) + LPT packer vs the NumPy oracle."""
+"""The stream route (lane refill) + LPT packer vs the NumPy oracle.
+
+On the CPU the platform route (sw_scores_stream / sw_scores_stream_carry)
+scores with the lax twins; on a GPU the same calls reach the CUDA kernel
+(tests/test_sw_cuda.py and chip_smoke.py compare the two exactly)."""
 
 import numpy as np
 import pytest
@@ -7,7 +11,11 @@ from swipe_tpu.batching import pack_stream
 from swipe_tpu.matrices import ScoreMatrix
 from swipe_tpu.ops.sw_ref import sw_numpy_many
 from swipe_tpu.ops.sw_stream import (KSEG, build_matrix8, build_qcodes,
-                                     gather_scores, sw_scores_stream)
+                                     gather_scores, make_stream_state,
+                                     permute_stream_state, sw_scores_stream,
+                                     sw_scores_stream_carry,
+                                     sw_scores_stream_lax,
+                                     sw_scores_stream_lax_carry)
 
 
 @pytest.fixture(scope="module")
@@ -27,8 +35,7 @@ def _run(queries, seqs, m, qlen_pad=128, nseqs=1024, max_cols=65536):
     got = np.zeros((len(queries), len(seqs)), dtype=np.int64)
     for ch in chunks:
         out = sw_scores_stream(qc, ql, m8, ch.data, ch.start,
-                               gapopenextend=12, gapextend=1,
-                               interpret=True)
+                               gapopenextend=12, gapextend=1)
         sc = np.asarray(gather_scores(out, ch.end_block, ch.lane))
         got[:, ch.seqnos] = sc
     return got, chunks
@@ -66,9 +73,8 @@ def test_stream_clamped_tier_saturates(m62):
     qc, ql = build_qcodes([s], 256)
     m8 = build_matrix8(m62.matrix)
     ch = chunks[0]
-    out = sw_scores_stream(qc, ql, m8, ch.data, ch.start,
-                           gapopenextend=12, gapextend=1, clamp=127,
-                           interpret=True)
+    out = sw_scores_stream_lax(qc, ql, m8, ch.data, ch.start,
+                               gapopenextend=12, gapextend=1, clamp=127)
     sc = np.asarray(gather_scores(out, ch.end_block, ch.lane))
     got = {int(sn): int(v) for sn, v in zip(ch.seqnos, sc[0])}
     assert got[0] == 127  # saturated, flags escalation
@@ -109,39 +115,27 @@ def test_stream_lax_matches_oracle(m62):
     assert np.array_equal(got, want)
 
 
-def test_stream_long_query_tiled(m62):
-    import jax.numpy as jnp
-
-    from swipe_tpu.ops.sw_stream import sw_scores_stream_long
+def test_stream_long_query_matches_oracle(m62):
+    # queries of several lengths padded to one 256-row bucket: rows past a
+    # query's length see the pad penalty and never raise a score
     rng = np.random.default_rng(9)
-    # queries longer than one tile: tile_rows=64 with qlen up to 250
     queries = [rng.integers(1, 26, size=int(L), dtype=np.int8)
                for L in (250, 40, 130)]
     seqs = _rand_seqs(rng, 1100, 1, 200)
-    chunks = pack_stream(seqs, nseqs=1024)
-    qc, ql = build_qcodes(queries, 256)
-    m8 = build_matrix8(m62.matrix)
-    got = np.zeros((3, len(seqs)), dtype=np.int64)
-    for ch in chunks:
-        out = sw_scores_stream_long(
-            jnp.asarray(qc), jnp.asarray(ql), jnp.asarray(m8),
-            jnp.asarray(ch.data), jnp.asarray(ch.start),
-            gapopenextend=12, gapextend=1, tile_rows=64, interpret=True)
-        sc = np.asarray(gather_scores(out, ch.end_block, ch.lane))
-        got[:, ch.seqnos] = sc
+    got, _ = _run(queries, seqs, m62, qlen_pad=256)
     want = np.stack([sw_numpy_many(q, seqs, m62.matrix, 11, 1)
                      for q in queries])
     assert np.array_equal(got, want)
 
 
 def test_all_kernels_agree_randomized(m62):
-    """Property test: stream (interpret), stream-lax, segmented-lax and the
-    NumPy oracle agree on random shapes/penalties across several seeds."""
+    """Property test: the stream route, the stream lax twin, the segment
+    lax route and the NumPy oracle agree on random shapes/penalties
+    across several seeds."""
     import jax.numpy as jnp
 
     from swipe_tpu.batching import pack_database
-    from swipe_tpu.ops.sw_pallas import build_qpt, sw_scores_lax
-    from swipe_tpu.ops.sw_stream import sw_scores_stream_lax
+    from swipe_tpu.ops.sw_segment import build_qpt, sw_scores_lax
 
     for seed in range(3):
         rng = np.random.default_rng(1000 + seed)
@@ -156,11 +150,10 @@ def test_all_kernels_agree_randomized(m62):
         qc, ql = build_qcodes(queries, qlen_pad)
         m8 = build_matrix8(m62.matrix)
 
-        # stream pallas (interpret) + stream lax on the lane packing
+        # the platform route + the stream lax twin on the lane packing
         for ch in pack_stream(seqs, nseqs=1024):
             a = sw_scores_stream(qc, ql, m8, ch.data, ch.start,
-                                 gapopenextend=go + ge, gapextend=ge,
-                                 interpret=True)
+                                 gapopenextend=go + ge, gapextend=ge)
             b = sw_scores_stream_lax(
                 jnp.asarray(qc), jnp.asarray(ql), jnp.asarray(m8),
                 jnp.asarray(ch.data), jnp.asarray(ch.start),
@@ -183,50 +176,17 @@ def test_all_kernels_agree_randomized(m62):
                         assert (out[:, k, lane] == want[:, sn]).all(), seed
 
 
-@pytest.mark.parametrize("qgroup", [2, 3, 5])
-def test_stream_qgroup_matches_oracle(m62, qgroup):
-    # query groups share one dprofile per block and co-resident state;
-    # scores must be identical for any group size, including ragged tails
-    rng = np.random.default_rng(40 + qgroup)
-    queries = _rand_seqs(rng, 7, 10, 60)     # 7 queries: ragged vs 2/3/5
+@pytest.mark.parametrize("nq", [2, 3, 5, 7])
+def test_stream_query_batch_matches_oracle(m62, nq):
+    # a batch of queries rides the kernel's query axis; scores must be
+    # identical for any batch size, including odd ones
+    rng = np.random.default_rng(40 + nq)
+    queries = _rand_seqs(rng, nq, 10, 60)
     seqs = _rand_seqs(rng, 1500, 1, 120)
-    chunks = pack_stream(seqs, nseqs=1024)
-    qc, ql = build_qcodes(queries, 64)
-    m8 = build_matrix8(m62.matrix)
-    got = np.zeros((len(queries), len(seqs)), dtype=np.int64)
-    for ch in chunks:
-        out = sw_scores_stream(qc, ql, m8, ch.data, ch.start,
-                               gapopenextend=12, gapextend=1,
-                               interpret=True, qgroup=qgroup)
-        got[:, ch.seqnos] = np.asarray(
-            gather_scores(out, ch.end_block, ch.lane))
+    got, _ = _run(queries, seqs, m62, qlen_pad=64)
     want = np.stack([sw_numpy_many(q, seqs, m62.matrix, 11, 1)
                      for q in queries])
     assert np.array_equal(got, want)
-
-
-def test_stream_megacore_parallel_groups(m62, monkeypatch):
-    # the megacore flag marks the group axis "parallel"; each group's
-    # state is self-contained, so results must be identical (validated
-    # exact on the real chip too; 2-core throughput needs v4/v5p)
-    monkeypatch.setenv("SWIPE_TPU_MEGACORE", "1")
-    from swipe_tpu.ops.sw_stream import is_megacore
-    assert is_megacore()
-    rng = np.random.default_rng(60)
-    queries = _rand_seqs(rng, 5, 10, 60)
-    seqs = _rand_seqs(rng, 900, 1, 120)
-    ch = pack_stream(seqs, nseqs=1024)[0]
-    qc, ql = build_qcodes(queries, 64)
-    m8 = build_matrix8(m62.matrix)
-    out = sw_scores_stream(qc, ql, m8, ch.data, ch.start,
-                           gapopenextend=12, gapextend=1,
-                           interpret=True, qgroup=2, megacore=True)
-    got = np.asarray(gather_scores(out, ch.end_block, ch.lane))
-    want = np.stack([sw_numpy_many(q, seqs, m62.matrix, 11, 1)
-                     for q in queries])
-    full = np.zeros_like(want)
-    full[:, ch.seqnos] = got
-    assert np.array_equal(full, want)
 
 
 def test_pack_stream_carry_bounds_and_coverage():
@@ -249,14 +209,8 @@ def test_pack_stream_carry_bounds_and_coverage():
 
 def test_stream_carry_matches_oracle(m62):
     # sequences cut across many carry chunks must score exactly like the
-    # uncut oracle, through both the pallas (interpret) and lax twins
-    import jax.numpy as jnp
-
+    # uncut oracle, through the platform route and the lax twin
     from swipe_tpu.batching import pack_stream_carry
-    from swipe_tpu.ops.sw_stream import (make_stream_state,
-                                         make_stream_state_lax,
-                                         sw_scores_stream_carry,
-                                         sw_scores_stream_lax_carry)
     rng = np.random.default_rng(22)
     queries = _rand_seqs(rng, 2, 20, 60)
     seqs = [rng.integers(1, 26, size=int(L), dtype=np.int8)
@@ -268,42 +222,25 @@ def test_stream_carry_matches_oracle(m62):
     qc, ql = build_qcodes(queries, 64)
     m8 = build_matrix8(m62.matrix)
 
-    h, e, s = make_stream_state(2, 64, 1024)
-    got = np.zeros((2, len(seqs)), dtype=np.int64)
-    for ch in chunks:
-        out, h, e, s = sw_scores_stream_carry(
-            qc, ql, m8, ch.data, ch.start, h, e, s,
-            gapopenextend=12, gapextend=1, interpret=True)
-        if len(ch.seqnos):
-            got[:, ch.seqnos] = np.asarray(
-                gather_scores(out, ch.end_block, ch.lane))
-    assert np.array_equal(got, want)
-
-    # lax twin runs at the compact chunk width directly
-    h, e, s = make_stream_state_lax(2, 64, chunks[0].nseqs)
-    got = np.zeros((2, len(seqs)), dtype=np.int64)
-    for ch in chunks:
-        dumps, h, e, s = sw_scores_stream_lax_carry(
-            jnp.asarray(qc), jnp.asarray(ql), jnp.asarray(m8),
-            jnp.asarray(ch.data), jnp.asarray(ch.start), h, e, s,
-            gapopenextend=12, gapextend=1)
-        if len(ch.seqnos):
-            got[:, ch.seqnos] = np.asarray(
-                gather_scores(dumps, ch.end_block, ch.lane))
-    assert np.array_equal(got, want)
+    for step in (sw_scores_stream_carry, sw_scores_stream_lax_carry):
+        # chunks are compact: the state has the chunks' own lane count
+        h, e, s = make_stream_state(2, 64, chunks[0].nseqs)
+        got = np.zeros((2, len(seqs)), dtype=np.int64)
+        for ch in chunks:
+            out, h, e, s = step(qc, ql, m8, ch.data, ch.start, h, e, s,
+                                gapopenextend=12, gapextend=1)
+            if len(ch.seqnos):
+                got[:, ch.seqnos] = np.asarray(
+                    gather_scores(out, ch.end_block, ch.lane))
+        assert np.array_equal(got, want), step.__name__
 
 
 def test_stream_carry_long_matches_oracle(m62):
-    # queries beyond one VMEM tile x sequences cut across carry chunks:
-    # the tiled-carry kernel threads H/E row state, S, and the
-    # tile-crossing diagonal plane through chunk boundaries; every
-    # combination of (tile boundary, chunk cut, lane refill) must score
-    # exactly like the uncut oracle
+    # tall queries x sequences cut across carry chunks: every combination
+    # of (query length, chunk cut, lane refill) must score exactly like
+    # the uncut oracle; the fresh first chunk takes carry_in=False
     from swipe_tpu.batching import pack_stream_carry
-    from swipe_tpu.ops.sw_stream import (make_stream_state_long,
-                                         sw_scores_stream_carry_long)
     rng = np.random.default_rng(29)
-    # 3 tiles of 64 rows; the short query exercises rows=0 tail tiles
     queries = [rng.integers(1, 26, size=150, dtype=np.int8),
                rng.integers(1, 26, size=40, dtype=np.int8)]
     seqs = [rng.integers(1, 26, size=int(L), dtype=np.int8)
@@ -315,12 +252,12 @@ def test_stream_carry_long_matches_oracle(m62):
     qc, ql = build_qcodes(queries, 192)
     m8 = build_matrix8(m62.matrix)
 
-    h, e, s, bh0c = make_stream_state_long(2, 192, 1024, tile_rows=64)
+    h, e, s = make_stream_state(2, 192, chunks[0].nseqs)
     got = np.zeros((2, len(seqs)), dtype=np.int64)
-    for ch in chunks:
-        out, h, e, s, bh0c = sw_scores_stream_carry_long(
-            qc, ql, m8, ch.data, ch.start, h, e, s, bh0c,
-            gapopenextend=12, gapextend=1, tile_rows=64, interpret=True)
+    for i, ch in enumerate(chunks):
+        out, h, e, s = sw_scores_stream_carry(
+            qc, ql, m8, ch.data, ch.start, h, e, s,
+            gapopenextend=12, gapextend=1, carry_in=i > 0)
         if len(ch.seqnos):
             got[:, ch.seqnos] = np.asarray(
                 gather_scores(out, ch.end_block, ch.lane))
@@ -332,10 +269,7 @@ def test_stream_carry_wide_matrix_lax():
     import jax.numpy as jnp
 
     from swipe_tpu.batching import pack_stream_carry
-    from swipe_tpu.matrices import ScoreMatrix
-    from swipe_tpu.ops.sw_stream import (build_matrix_wide,
-                                         make_stream_state_lax,
-                                         sw_scores_stream_lax_carry)
+    from swipe_tpu.ops.sw_stream import build_matrix_wide
     m = ScoreMatrix.nucleotide(200, -300, 400, 200)
     rng = np.random.default_rng(23)
     # nt16 codes 1..15
@@ -347,10 +281,11 @@ def test_stream_carry_wide_matrix_lax():
                      for q in queries])
     qc, ql = build_qcodes(queries, 32)
     mw = build_matrix_wide(m.matrix)
-    h, e, s = make_stream_state_lax(1, 32, chunks[0].nseqs)
+    h, e, s = make_stream_state(1, 32, chunks[0].nseqs)
     got = np.zeros((1, len(seqs)), dtype=np.int64)
     for ch in chunks:
-        dumps, h, e, s = sw_scores_stream_lax_carry(
+        # the int32 matrix routes the platform call to the lax twin
+        dumps, h, e, s = sw_scores_stream_carry(
             jnp.asarray(qc), jnp.asarray(ql), jnp.asarray(mw),
             jnp.asarray(ch.data), jnp.asarray(ch.start), h, e, s,
             gapopenextend=600, gapextend=200)
@@ -373,61 +308,53 @@ def test_pack_stream_oversized_sequence(m62):
     got = np.zeros(len(seqs), dtype=np.int64)
     for ch in chunks:
         out = sw_scores_stream(qc, ql, m8, ch.data, ch.start,
-                               gapopenextend=12, gapextend=1,
-                               interpret=True)
+                               gapopenextend=12, gapextend=1)
         got[ch.seqnos] = np.asarray(
             gather_scores(out, ch.end_block, ch.lane))[0]
     want = sw_numpy_many(seqs[5], seqs, m62.matrix, 11, 1)
     assert np.array_equal(got, want)
 
 
-def test_megacore_env_override_parsing(monkeypatch):
-    # the documented escape hatch must treat common falsey strings as
-    # OFF ("false" used to silently enable the parallel group axis)
-    from swipe_tpu.ops.sw_stream import is_megacore
-    for v in ("0", "", "false", "False", "off", "no"):
-        monkeypatch.setenv("SWIPE_TPU_MEGACORE", v)
-        assert not is_megacore(), v
-    for v in ("1", "true", "YES", "on"):
-        monkeypatch.setenv("SWIPE_TPU_MEGACORE", v)
-        assert is_megacore(), v
-
-
 def test_stream_flow_matches_oracle(m62):
     """Flow series (pack_stream_flow): sequences cut at chunk capacity,
     continued next chunk on permuted lanes (permute_stream_state), with
     narrow drain chunks — scores must equal the NumPy oracle exactly."""
+    _check_flow(m62, 42, (37, 64), 64, (900, 1400, 2000, 2600))
+
+
+def test_stream_flow_tall_query_matches_oracle(m62):
+    """The same flow walk with a 128-row query bucket."""
+    _check_flow(m62, 21, (100, 57), 128, (800, 1300))
+
+
+def _check_flow(m62, seed, qlens, qlen_pad, tail):
     import jax.numpy as jnp
 
     from swipe_tpu.batching import pack_stream_flow
-    from swipe_tpu.ops.sw_stream import (make_stream_state,
-                                         permute_stream_state,
-                                         sw_scores_stream_carry)
-    rng = np.random.default_rng(42)
+    rng = np.random.default_rng(seed)
     # heavy tail: forces multi-chunk cut chains and narrow drains
-    lens = np.concatenate([rng.integers(5, 200, 600),
-                           [900, 1400, 2000, 2600]])
+    lens = np.concatenate([rng.integers(5, 200, 600), tail])
     rng.shuffle(lens)
     seqs = [rng.integers(1, 26, size=int(L), dtype=np.int8) for L in lens]
     queries = [rng.integers(1, 26, size=int(L), dtype=np.int8)
-               for L in (37, 64)]
+               for L in qlens]
     chunks = pack_stream_flow(seqs, nseqs=1024, max_cols=256,
                               drain_cols=128)
-    assert len(chunks) > 3          # the tail must actually chain
-    qc, ql = build_qcodes(queries, 64)
+    assert len(chunks) > 2          # the tail must actually chain
+    qc, ql = build_qcodes(queries, qlen_pad)
     qc, ql = jnp.asarray(qc), jnp.asarray(ql)
     m8 = jnp.asarray(build_matrix8(m62.matrix))
     got = np.zeros((2, len(seqs)), dtype=np.int64)
     h = e = s = None
     for i, ch in enumerate(chunks):
         if i == 0:
-            h, e, s = make_stream_state(2, 64, ch.nseqs)
+            h, e, s = make_stream_state(2, qlen_pad, ch.nseqs)
         else:
             h, e, s = permute_stream_state(h, e, s,
                                            jnp.asarray(ch.carry_src))
         out, h, e, s = sw_scores_stream_carry(
             qc, ql, m8, jnp.asarray(ch.data), jnp.asarray(ch.start),
-            h, e, s, gapopenextend=12, gapextend=1, interpret=True)
+            h, e, s, gapopenextend=12, gapextend=1, carry_in=i > 0)
         if len(ch.seqnos):
             got[:, ch.seqnos] = np.asarray(
                 gather_scores(out, jnp.asarray(ch.end_block),
@@ -437,73 +364,12 @@ def test_stream_flow_matches_oracle(m62):
     assert np.array_equal(got, want)
 
 
-def test_stream_dprof_input_matches_oracle(m62):
-    """Precomputed-dprofile path (build_dprofile_series + dprof= input):
-    both the grouped and the carry kernel must equal the oracle exactly
-    — the profile blocks are streamed from HBM instead of rebuilt per
-    (query, block), which must not change a single score."""
-    import jax.numpy as jnp
-
-    from swipe_tpu.batching import pack_stream, pack_stream_flow
-    from swipe_tpu.ops.sw_stream import (build_dprofile_series,
-                                         make_stream_state,
-                                         permute_stream_state,
-                                         sw_scores_stream,
-                                         sw_scores_stream_carry)
-    rng = np.random.default_rng(21)
-    lens = np.concatenate([rng.integers(5, 250, 250), [800, 1300]])
-    rng.shuffle(lens)
-    seqs = [rng.integers(1, 26, size=int(L), dtype=np.int8) for L in lens]
-    queries = [rng.integers(1, 26, size=int(L), dtype=np.int8)
-               for L in (100, 57)]
-    m8 = jnp.asarray(build_matrix8(m62.matrix))
-    qc, ql = map(jnp.asarray, build_qcodes(queries, 128))
-    want = np.stack([sw_numpy_many(q, seqs, m62.matrix, 11, 1)
-                     for q in queries])
-
-    # grouped kernel
-    got = np.zeros((2, len(seqs)))
-    for c in pack_stream(seqs, nseqs=1024, max_cols=4096):
-        d = jnp.asarray(c.data_t).T
-        dp = build_dprofile_series(m8, d, interpret=True)
-        out = sw_scores_stream(qc, ql, m8, d, jnp.asarray(c.start),
-                               gapopenextend=12, gapextend=1,
-                               interpret=True, dprof=dp)
-        got[:, c.seqnos] = np.asarray(gather_scores(
-            out, jnp.asarray(c.end_block), jnp.asarray(c.lane)))
-    assert np.array_equal(got, want)
-
-    # carry kernel over a flow series (cut chains + narrow drains)
-    got[:] = 0
-    h = e = s = None
-    chunks = pack_stream_flow(seqs, nseqs=1024, max_cols=256,
-                              drain_cols=128)
-    for i, ch in enumerate(chunks):
-        if i == 0:
-            h, e, s = make_stream_state(2, 128, ch.nseqs)
-        else:
-            h, e, s = permute_stream_state(h, e, s,
-                                           jnp.asarray(ch.carry_src))
-        d = jnp.asarray(ch.data)
-        dp = build_dprofile_series(m8, d, interpret=True)
-        out, h, e, s = sw_scores_stream_carry(
-            qc, ql, m8, d, jnp.asarray(ch.start), h, e, s,
-            gapopenextend=12, gapextend=1, interpret=True, dprof=dp)
-        if len(ch.seqnos):
-            got[:, ch.seqnos] = np.asarray(gather_scores(
-                out, jnp.asarray(ch.end_block), jnp.asarray(ch.lane)))
-    assert np.array_equal(got, want)
-
-
 def test_stream_flow_matches_oracle_lax():
     """Same flow-series walk through the any-backend lax twin (3-D state
     layout through permute_stream_state)."""
     import jax.numpy as jnp
 
     from swipe_tpu.batching import pack_stream_flow
-    from swipe_tpu.ops.sw_stream import (make_stream_state_lax,
-                                         permute_stream_state,
-                                         sw_scores_stream_lax_carry)
     m62 = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1)
     rng = np.random.default_rng(43)
     lens = np.concatenate([rng.integers(5, 120, 150), [700, 1100]])
@@ -519,7 +385,7 @@ def test_stream_flow_matches_oracle_lax():
     h = e = s = None
     for i, ch in enumerate(chunks):
         if i == 0:
-            h, e, s = make_stream_state_lax(1, 48, ch.nseqs)
+            h, e, s = make_stream_state(1, 48, ch.nseqs)
         else:
             h, e, s = permute_stream_state(h, e, s,
                                            jnp.asarray(ch.carry_src))
@@ -534,19 +400,14 @@ def test_stream_flow_matches_oracle_lax():
     assert np.array_equal(got, want)
 
 
-def test_stream_carry_minter_matches_oracle(m62):
-    """Member-interleaved carry kernel (minter=2/4): consecutive queries
-    of the batch share one pass over every chunk; scores and the carried
-    state must equal the single-member walk exactly — including members
-    of DIFFERENT lengths (a shorter member's overhang rows ride the PAD
-    profile) and a flow series with lane permutes between chunks."""
+def test_stream_flow_query_batch_matches_oracle(m62):
+    """Queries of different lengths in one batch over a flow series with
+    lane permutes between chunks: a shorter query's overhang rows ride
+    the pad penalty, and the carried state of every query threads
+    through the cuts exactly."""
     import jax.numpy as jnp
 
     from swipe_tpu.batching import pack_stream_flow
-    from swipe_tpu.ops.sw_stream import (build_dprofile_series,
-                                         make_stream_state,
-                                         permute_stream_state,
-                                         sw_scores_stream_carry)
     rng = np.random.default_rng(33)
     queries = [rng.integers(1, 26, size=int(L), dtype=np.int8)
                for L in (60, 23, 41, 64)]
@@ -559,32 +420,18 @@ def test_stream_carry_minter_matches_oracle(m62):
                      for q in queries])
     qc, ql = build_qcodes(queries, 64)
     m8 = build_matrix8(m62.matrix)
-
-    for minter, dpdtype in ((2, None), (4, jnp.int16)):
-        got = np.zeros((4, len(seqs)), dtype=np.int64)
-        h = e = s = None
-        for i, ch in enumerate(chunks):
-            if i == 0:
-                h, e, s = make_stream_state(4, 64, 1024)
-            else:
-                h, e, s = permute_stream_state(h, e, s,
-                                               jnp.asarray(ch.carry_src))
-            dp = None
-            if dpdtype is not None:
-                # profiles are built at the STATE's lane width (the
-                # kernel PAD-expands compact chunks on device)
-                from swipe_tpu.ops.sw_pallas import PAD_SYMBOL
-                data = np.full((ch.n_cols, h.shape[2] * h.shape[3]),
-                               PAD_SYMBOL, dtype=np.int8)
-                data[:, :ch.nseqs] = ch.data
-                dp = build_dprofile_series(jnp.asarray(m8),
-                                           jnp.asarray(data),
-                                           interpret=True, dtype=dpdtype)
-            out, h, e, s = sw_scores_stream_carry(
-                qc, ql, m8, ch.data, ch.start, h, e, s,
-                gapopenextend=12, gapextend=1, interpret=True,
-                minter=minter, dprof=dp)
-            if len(ch.seqnos):
-                got[:, ch.seqnos] = np.asarray(
-                    gather_scores(out, ch.end_block, ch.lane))
-        assert np.array_equal(got, want), f"minter={minter}"
+    got = np.zeros((4, len(seqs)), dtype=np.int64)
+    h = e = s = None
+    for i, ch in enumerate(chunks):
+        if i == 0:
+            h, e, s = make_stream_state(4, 64, ch.nseqs)
+        else:
+            h, e, s = permute_stream_state(h, e, s,
+                                           jnp.asarray(ch.carry_src))
+        out, h, e, s = sw_scores_stream_carry(
+            qc, ql, m8, ch.data, ch.start, h, e, s,
+            gapopenextend=12, gapextend=1)
+        if len(ch.seqnos):
+            got[:, ch.seqnos] = np.asarray(
+                gather_scores(out, ch.end_block, ch.lane))
+    assert np.array_equal(got, want)

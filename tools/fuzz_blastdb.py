@@ -26,10 +26,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 from swipe_tpu.alphabet import MAP_NCBI_AA, encode  # noqa: E402
 from swipe_tpu.io.asn1 import Defline  # noqa: E402
 

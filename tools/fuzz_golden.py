@@ -20,10 +20,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 from swipe_tpu.alphabet import MAP_NCBI_AA, MAP_NCBI_NT16, encode  # noqa: E402
 from swipe_tpu.io.blastdb_writer import make_deflines, write_blastdb  # noqa: E402
 
@@ -230,9 +226,9 @@ def one_case(ref_bin, d, rng, case):
     ref_out = normalize(r.stdout.decode())
     extra = ["--batch", str(int(rng.integers(2, 5)))] \
         if rng.random() < 0.2 else []
-    # a few cases per run drive the production stream path (interpret
-    # mode on CPU) through the full CLI->kernel->top-K->report chain
-    backend = "stream_interpret" if (not big and rng.random() < 0.03) \
+    # a few cases per run drive the production stream route (the lax
+    # twin on the CPU) through the full CLI->kernel->top-K->report chain
+    backend = "stream" if (not big and rng.random() < 0.03) \
         else "lax"
     our_out = normalize(run_ours(args + extra, backend, stdin_bytes))
     if ref_out != our_out:
